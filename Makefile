@@ -1,7 +1,7 @@
 # Convenience targets (the analog of the reference's Makefile wrapper).
 PYTHON ?= python
 
-.PHONY: test test-fast test-cold test-stress bench profile native lint clean
+.PHONY: test test-fast test-gpu test-stress bench smoke profile native clean
 
 test:
 	$(PYTHON) -m pytest tests/ -q
@@ -9,14 +9,10 @@ test:
 test-fast:
 	$(PYTHON) -m pytest tests/test_oracle.py tests/test_utils.py tests/test_native.py -q
 
-# Cold-cache suite timing: a throwaway compilation-cache dir pins the
-# "cold suite" claim in docs/PERF.md (the default run shares
-# /tmp/cuzk_tpu_jax_cache and measures warm; pytest's own summary line
-# reports the duration).
-test-cold:
-	CACHE=$$(mktemp -d /tmp/cuzk_cold_cache.XXXXXX) && \
-	JAX_COMPILATION_CACHE_DIR=$$CACHE $(PYTHON) -m pytest tests/ -q; \
-	rc=$$?; rm -rf $$CACHE; exit $$rc
+# The gpu-marked tests, on a machine with a GPU: one process, since each
+# JAX process reserves most of the card's memory.
+test-gpu:
+	CUZK_TEST_GPU=1 $(PYTHON) -m pytest tests/ -q -m gpu -n 0
 
 # Stress tier (64K+-leaf trees) — the analog of the reference's
 # DISABLED_StressTestLargeTree, opt-in like its DISABLED_ prefix.
@@ -25,6 +21,9 @@ test-stress:
 
 bench:
 	$(PYTHON) bench.py
+
+smoke:
+	$(PYTHON) chip_smoke.py
 
 bench-all:
 	$(PYTHON) -m cuzk_tpu.bench.run --suite all
@@ -36,5 +35,5 @@ native:
 	$(PYTHON) -c "from cuzk_tpu import native; print(native.ensure_built(force=True))"
 
 clean:
-	rm -rf cuzk_tpu/native/_build .pytest_cache
+	rm -rf cuzk_tpu/native/_build .pytest_cache .jax_cache
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -1,16 +1,19 @@
-"""cuzk_tpu — a TPU-native ZK hashing framework.
+"""cuzk_tpu — a JAX ZK hashing framework with a CUDA Poseidon kernel.
 
-Brand-new JAX / XLA / Pallas implementation of the capabilities of the
+Brand-new JAX / XLA / CUDA implementation of the capabilities of the
 davencyw/cuZK reference library: BN254-Fr field arithmetic, the Poseidon hash
 (t=3, R_F=8, R_P=56, x^5 S-box), and n-ary (2-8) Merkle trees with proof
 generation and vectorized batch verification — bit-exact against the reference
-CPU semantics (see SURVEY.md Appendix A) and designed TPU-first:
+CPU semantics (see SURVEY.md Appendix A):
 
 - field elements live as ``[..., 16] uint32`` arrays of 16-bit digits
-  (re-limbed from the reference's 4x64-bit for the TPU VPU);
-- the hot Poseidon permutation is a fused Pallas kernel batched over states;
+  (re-limbed from the reference's 4x64-bit for plain jnp);
+- the hot Poseidon sponge/permutation is a CUDA kernel (one state per
+  thread) called through ``jax.ffi`` on the GPU, with the plain jnp path as
+  the reference and the CPU path;
 - Merkle trees build level-by-level under one ``jit`` (no per-level host
-  round-trips), and shard across pods via ``jax.sharding`` + ``shard_map``.
+  round-trips), and shard across devices via ``jax.sharding`` +
+  ``shard_map``.
 """
 
 from cuzk_tpu import oracle

@@ -1,22 +1,20 @@
-"""Weak-scaling benchmark under REAL multi-process ``jax.distributed``.
+"""CPU rehearsal of the multi-host protocol under REAL ``jax.distributed``.
 
-The virtual-mesh weak-scaling sweep (``bench.run --suite scaling --weak``)
-runs d logical devices inside one process, so its collectives never cross a
-process boundary.  This harness reuses the bootstrap proven by
-tests/mp_worker.py to run the same sharded build across N localhost OS
-processes x ``--devices-per-proc`` CPU devices each: the ``all_gather``
-level collapse and the sparse-psum proof path now ride the cross-process
-collective transport (the real coordination cost a multi-host TPU slice
-pays over DCN), and the recorded rows say so.
+This harness reuses the bootstrap proven by tests/mp_worker.py to run the
+sharded build across N localhost OS processes x ``--devices-per-proc``
+CPU devices each: the ``all_gather`` level collapse and the sparse-psum
+proof path ride the cross-process collective transport.  Workers are
+pinned to the CPU and it is never pointed at a GPU (each JAX process would
+reserve most of one card's memory); its rows are protocol costs on the
+host, not device numbers.
 
-On a 1-core host all processes contend for the same core, so — exactly as
-in docs/WEAK_SCALING.json — ``efficiency_serialized`` =
+All processes share the host's cores, so ``efficiency_serialized`` =
 throughput(d)/throughput(1) (ideal 1.0, total-throughput retention) is the
 meaningful metric; classic parallel ``efficiency`` necessarily decays ~1/d.
 
 Usage (launcher spawns its own workers):
     python -m cuzk_tpu.bench.mp_scaling --leaves-per-device 512 --arity 8 \
-        --procs 1 2 4 --devices-per-proc 2 --out docs/WEAK_SCALING_MP.json
+        --procs 1 2 4 --devices-per-proc 2 --out mp_scaling.json
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""BN254-Fr field layer: exact oracle semantics on TPU-friendly 16-bit digits."""
+"""BN254-Fr field layer: exact oracle semantics on 16-bit digits."""
 
 from cuzk_tpu.field import fr
 from cuzk_tpu.field.fr import (

@@ -2,7 +2,7 @@
 (cuda/field_arithmetic_cuda.cuh:25-81: batch_add/subtract/multiply/square/
 power5 over element arrays).
 
-On TPU these are simply the jitted vectorized ops from
+These are simply the jitted vectorized ops from
 :mod:`cuzk_tpu.field.fr` — XLA owns buffers, so the reference's per-call
 malloc/H2D/D2H pipeline (field_arithmetic_cuda.cu:362-432) has no analog.
 Provided as an explicit class for API discoverability and stats parity.

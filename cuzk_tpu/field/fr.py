@@ -1,11 +1,11 @@
-"""Vectorized BN254-Fr arithmetic for TPU: ``[..., 16] uint32`` digit arrays.
+"""Vectorized BN254-Fr arithmetic: ``[..., 16] uint32`` digit arrays.
 
-TPU-first re-limbing of the reference's 4x64-bit ``FieldElement``
-(field_arithmetic.hpp:11-44): a field element is 16 little-endian 16-bit
-digits held in uint32 lanes, so every digit product fits a native u32
-multiply on the VPU (the reference's CUDA code emulates 64x64 multiplies via
-32-bit halves, cuda_field_element.cuh:234-284 — on TPU we pick the limb width
-so no emulation is needed at all).
+A re-limbing of the reference's 4x64-bit ``FieldElement``
+(field_arithmetic.hpp:11-44) for plain jnp: a field element is 16
+little-endian 16-bit digits held in uint32 lanes, so every digit product
+fits a native u32 multiply with no 64-bit emulation.  This digit format is
+also the boundary format of the CUDA kernel in ``cuzk_tpu.ops``, which
+converts to four 64-bit limbs inside.
 
 Every function here is a pure, batch-vectorized jnp program that reproduces
 ``cuzk_tpu.oracle`` bit-for-bit, including the deliberate reference quirks
@@ -14,13 +14,12 @@ Data-dependent branches of the C++ code (``if (high == 0)``, ``while (a >= p)``)
 are made branchless with selects, and carry/borrow propagation is done with
 Kogge-Stone generate/propagate scans along the digit axis (log-depth vector
 ops instead of a 16/32-step ripple chain): graphs are ~10x smaller than the
-naive per-digit formulation, which matters both for XLA compile time and for
-VPU utilization at small batch sizes.  Schoolbook partial-product columns are
-accumulated with ONE dot against a constant 0/1 spreading matrix (exact in
-u32: <=32 terms of <2^16 each).
+naive per-digit formulation, which matters for XLA compile time.
+Schoolbook partial-product columns are accumulated with dots against
+constant 0/1 spreading matrices (see :func:`_schoolbook_cols`).
 
-This module is the *reference path*; the Pallas kernels in ``cuzk_tpu.ops``
-are the accelerated path and are tested differentially against it (the same
+This module is the *reference path*; the kernel in ``cuzk_tpu.ops`` is the
+accelerated path and are tested differentially against it (the same
 oracle/accelerator invariant the reference maintains between its CPU and CUDA
 implementations, SURVEY.md §1).
 """
@@ -253,38 +252,29 @@ def _spread_matrices(n_out: int):
 def _schoolbook_cols(a: jnp.ndarray, b: jnp.ndarray, n_out: int):
     """Partial-product column sums: lo[i,j] lands in column i+j, hi[i,j] in
     column i+j+1, accumulated as TWO dots against constant 0/1 spreading
-    matrices (exact in u32: <=32 terms of <2^16 each per column keeps sums
-    < 2^21).  The dot form is ~5 HLO ops where the old padded-row-add form
-    was ~130 — the single largest contributor to sponge compile time.
+    matrices.  The dot form is ~5 HLO ops where a padded-row-add form is
+    ~130 — the single largest term of sponge compile time.
 
-    On the CPU backend the dots run in f32 (exact: every operand < 2^16 and
-    every column sum < 2^21 < 2^24 is exactly representable) — XLA:CPU emits
-    an Eigen GEMM call instead of scalar-unrolled integer loops, which cuts
-    LLVM compile time of each multiply ~12x (6.5 s -> 0.5 s measured on this
-    1-core host; the 64-round sponge compiles in seconds instead of minutes).
-    On TPU the u32 dot is kept: integer dots are exact there by construction,
-    while f32 MXU passes may not carry 21 mantissa bits at default precision.
+    The dots run in float32 at ``Precision.HIGHEST`` on every backend.
+    That is exact: every operand is < 2^16 and every column sum (at most 32
+    terms) is < 2^21 < 2^24, so each partial sum is an integer float32
+    holds exactly.  HIGHEST is load-bearing on the GPU, where a default-
+    precision float32 dot runs in TF32 (10 mantissa bits) and silently
+    breaks bit-exactness; on the CPU it compiles to the same Eigen GEMM as
+    the default.  (A uint32 dot is exact too, but cuBLAS has no integer
+    GEMM; PERF.md records what XLA:GPU made of it.)
     """
     prod = a[..., :, None] * b[..., None, :]  # [..., 16, 16], exact in u32
     flat_shape = prod.shape[:-2] + (NDIGITS * NDIGITS,)
-    lo = (prod & DIGIT_MASK).reshape(flat_shape)
-    hi = (prod >> DIGIT_BITS).reshape(flat_shape)
+    lo = (prod & DIGIT_MASK).reshape(flat_shape).astype(jnp.float32)
+    hi = (prod >> DIGIT_BITS).reshape(flat_shape).astype(jnp.float32)
     sl, sh = _spread_matrices(n_out)
     dims = (((lo.ndim - 1,), (0,)), ((), ()))
-    if jax.default_backend() == "cpu":
-        return (
-            jax.lax.dot_general(
-                lo.astype(jnp.float32), jnp.asarray(sl, jnp.float32), dims
-            )
-            + jax.lax.dot_general(
-                hi.astype(jnp.float32), jnp.asarray(sh, jnp.float32), dims
-            )
-        ).astype(jnp.uint32)
-    return jax.lax.dot_general(
-        lo, jnp.asarray(sl), dims, preferred_element_type=jnp.uint32
-    ) + jax.lax.dot_general(
-        hi, jnp.asarray(sh), dims, preferred_element_type=jnp.uint32
-    )
+    hp = jax.lax.Precision.HIGHEST
+    cols = jax.lax.dot_general(
+        lo, jnp.asarray(sl, jnp.float32), dims, precision=hp
+    ) + jax.lax.dot_general(hi, jnp.asarray(sh, jnp.float32), dims, precision=hp)
+    return cols.astype(jnp.uint32)
 
 
 def mul_wide(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
@@ -387,7 +377,7 @@ def eq(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 # Jit the public entry points: compiled once per shape, they fuse into tight
-# VPU code; eager per-op dispatch of digit-level programs would be slow.
+# code; eager per-op dispatch of digit-level programs would be slow.
 add = jax.jit(add)
 add_rr = jax.jit(add_rr)
 sub = jax.jit(sub)

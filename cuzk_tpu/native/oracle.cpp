@@ -256,6 +256,18 @@ void cuzk_batch_hash_single(const u64 *x, u64 *out, std::size_t n) {
   for (std::size_t i = 0; i < n; ++i) cuzk_hash_single(x + 4 * i, out + 4 * i);
 }
 
+// n hash_multiple calls over rows of `width` elements each.
+void cuzk_batch_hash_multiple(const u64 *x, std::size_t n, std::size_t width,
+                              u64 *out) {
+  for (std::size_t i = 0; i < n; ++i)
+    cuzk_hash_multiple(x + 4 * width * i, width, out + 4 * i);
+}
+
+// n raw permutations of 3-element states, in place.
+void cuzk_batch_permutation(u64 *states, std::size_t n) {
+  for (std::size_t i = 0; i < n; ++i) cuzk_permutation(states + 12 * i);
+}
+
 // Merkle root: pad leaves to the next power of arity with
 // empty_hash(arity) = hash_multiple(arity zeros), then level-by-level
 // group hashing (merkle_tree.cpp:44-100 semantics).

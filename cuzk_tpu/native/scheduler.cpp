@@ -1,7 +1,7 @@
 // Native exact-grouping primitives for the dedup verify scheduler.
 //
 // The deduplicated batch-verify schedule (cuzk_tpu/merkle.py,
-// _dedup_schedule/_dedup_pack — the TPU-native analog of the reference's
+// _dedup_schedule/_dedup_pack — the analog of the reference's
 // CSR proof flattening, /root/reference/src/merkle_tree/merkle_tree_cuda.cu
 // :361-401) must partition proof rows by EXACT byte equality: level-0
 // content groups, per-level sibling rows, suffix triples, and the value

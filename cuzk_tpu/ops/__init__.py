@@ -1,13 +1,12 @@
-"""Accelerated TPU ops (Pallas kernels) for cuzk_tpu.
+"""Accelerated ops for cuzk_tpu: the Poseidon CUDA kernel behind ``jax.ffi``.
 
 The analog of the reference's CUDA kernel layer (poseidon_cuda.cu,
 poseidon_cuda_optimized.cu, field_arithmetic_cuda.cu): the jnp modules are
-the oracle path, these kernels are the accelerator, and the two are tested
+the reference path, the kernel is the accelerator, and the two are tested
 differentially (SURVEY.md §1's CPU-oracle/GPU-accelerator invariant).
 """
 
-from cuzk_tpu.ops import fieldslab
-from cuzk_tpu.ops.poseidon_pallas import (
+from cuzk_tpu.ops.poseidon_kernel import (
     hash_single_pallas,
     hash_pair_pallas,
     hash_multiple_pallas,
@@ -21,7 +20,6 @@ from cuzk_tpu.ops.poseidon_pallas import (
 )
 
 __all__ = [
-    "fieldslab",
     "hash_single_pallas",
     "hash_pair_pallas",
     "hash_multiple_pallas",

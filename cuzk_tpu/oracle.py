@@ -1,7 +1,7 @@
 """Exact Python-integer oracle for the cuZK reference semantics.
 
 This module is the *specification* for the whole framework: every accelerated
-path (pure-jnp vectorized field ops, Pallas TPU kernels, sharded Merkle builds)
+path (pure-jnp vectorized field ops, the CUDA kernel, sharded Merkle builds)
 must agree with these functions bit-for-bit.
 
 The semantics replicated here are those of the reference CPU implementation

@@ -1,8 +1,7 @@
-"""Multi-chip / multi-host parallelism for cuzk_tpu.
+"""Multi-device / multi-host parallelism for cuzk_tpu.
 
 The reference is single-process single-GPU (SURVEY.md §2.2); this subsystem
-is the new TPU-native scaling dimension mandated by BASELINE.json's north
-star: batches and tree leaves sharded over a ``jax.sharding.Mesh``, with
+is the scaling dimension BASELINE.json's north star asks for: batches and tree leaves sharded over a ``jax.sharding.Mesh``, with
 XLA collectives (all_gather) collapsing the shrinking upper Merkle levels.
 """
 

@@ -1,9 +1,9 @@
 """Batched Poseidon hash (t=3, R_F=8, R_P=56, x^5 S-box) over BN254 Fr.
 
-TPU-first re-design of the reference's scalar CPU implementation
-(/root/reference/src/poseidon/poseidon.{hpp,cpp}) and its CUDA batch kernels
-(cuda/poseidon_cuda.cu, cuda/poseidon_cuda_optimized.cu): instead of one
-thread per state, every function here is a pure jnp program over
+A plain-jnp re-design of the reference's scalar CPU implementation
+(poseidon.{hpp,cpp}) and its CUDA batch kernels (cuda/poseidon_cuda.cu,
+cuda/poseidon_cuda_optimized.cu): instead of one thread per state, every
+function here is a pure jnp program over
 ``[..., 16] uint32`` digit arrays, batch-vectorized across leading axes, with
 the 64 rounds expressed as three ``lax.scan`` phases (4 full / 56 partial /
 4 full — poseidon.cpp:60-87) so the whole permutation compiles to one fused
@@ -12,7 +12,7 @@ XLA program.  Bit-exact against ``cuzk_tpu.oracle`` (SURVEY.md Appendix A).
 Design notes vs the reference:
 - Round constants (poseidon.cpp:33-44) and the 3x3 MDS matrix
   (poseidon.cpp:46-58) are baked in as numpy arrays and folded into the
-  compiled executable — the TPU analog of the reference's
+  compiled executable — the jnp analog of the reference's
   ``cudaMemcpyToSymbol`` constant upload (poseidon_cuda.cu:256-277).
 - MDS coefficients are tiny ({4..26}); rows use :func:`fr.mul_small`
   (one-digit multiplier) instead of the full 512-bit schoolbook product,
@@ -150,8 +150,8 @@ def _permute_stacked(s, full_round0_add: bool = False):
     in partial rounds.  A cond would compile two power5 programs (one per
     branch) — on the XLA:CPU backend, where compile cost is per-op and the
     sponge was minutes-slow, one traced power5 halves the round body.  The
-    extra runtime multiplies only affect this portable jnp path; the TPU hot
-    path is the fused Pallas kernel."""
+    extra runtime multiplies only affect this jnp path; the GPU hot path is
+    the CUDA kernel."""
     add0 = fr.add if full_round0_add else fr.add_rr
     s = add0(s, jnp.asarray(RC_DIGITS[0]))
 

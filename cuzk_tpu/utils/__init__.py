@@ -18,7 +18,7 @@ from cuzk_tpu.utils.errors import (
     validate_non_empty,
 )
 from cuzk_tpu.utils.stats import HashingStats, TreeBenchmarkResult, timed
-from cuzk_tpu.utils.device import device_info, check_tpu_compatibility
+from cuzk_tpu.utils.device import device_info, check_gpu_compatibility
 
 __all__ = [
     "to_hex",
@@ -37,5 +37,5 @@ __all__ = [
     "TreeBenchmarkResult",
     "timed",
     "device_info",
-    "check_tpu_compatibility",
+    "check_gpu_compatibility",
 ]

@@ -1,7 +1,8 @@
 """Exception types and validators (src/common/error_handling.hpp:15-55).
 
-The reference's CUDA_CHECK_* macro family has no TPU analog — XLA raises
-Python exceptions — so only the host-side validation surface is mirrored.
+The reference's CUDA_CHECK_* macro family has no analog here — XLA and the
+FFI handlers raise Python exceptions — so only the host-side validation
+surface is mirrored.
 """
 
 from __future__ import annotations

@@ -4,26 +4,20 @@
 set -e
 MODE="${1:-quick}"
 case "$MODE" in
-  quick)    python bench.py
-            # Refresh the on-hardware verification artifact every quick
-            # bench session (quick tier — the stress tier stays behind
-            # `verify`): any round that touches a kernel re-proves
-            # bit-exactness instead of relying on a manual run.
-            python -m cuzk_tpu.bench.run --suite verify ;;
+  quick)    python bench.py ;;
   full)     python -m cuzk_tpu.bench.run --suite all ;;
   poseidon) python -m cuzk_tpu.bench.run --suite poseidon ;;
   merkle)   python -m cuzk_tpu.bench.run --suite merkle
             python -m cuzk_tpu.bench.run --suite proofs ;;
   resident) python -m cuzk_tpu.bench.run --suite proofs --device-resident ;;
+  # CPU-only rehearsal of the multi-host protocol (never on a GPU).
   mp-scaling) python -m cuzk_tpu.bench.mp_scaling --leaves-per-device \
             "${LEAVES_PER_DEVICE:-512}" --arity 8 --procs 1 2 4 ;;
   compare)  python -m cuzk_tpu.bench.run --suite compare ;;
   sweep)    python -m cuzk_tpu.bench.run --suite sweep ;;
-  verify)   python -m cuzk_tpu.bench.run --suite verify --stress ;;
-  scaling)  JAX_PLATFORMS="${JAX_PLATFORMS:-cpu}" \
-            XLA_FLAGS="${XLA_FLAGS:---xla_force_host_platform_device_count=8}" \
-            python -m cuzk_tpu.bench.run --suite scaling --weak --arity 8 \
+  smoke)    python chip_smoke.py ;;
+  scaling)  python -m cuzk_tpu.bench.run --suite scaling --weak --arity 8 \
                 --leaves "${LEAVES_PER_DEVICE:-4096}" ;;
-  *) echo "usage: $0 [quick|full|poseidon|merkle|compare|sweep|verify|scaling|resident|mp-scaling]"
+  *) echo "usage: $0 [quick|full|poseidon|merkle|compare|sweep|smoke|scaling|resident|mp-scaling]"
      exit 1 ;;
 esac

@@ -153,6 +153,33 @@ def test_jit_compatible():
     assert fr.array_to_ints(jit_mul(a, b)) == fr.array_to_ints(fr.mul(a, b))
 
 
+def test_schoolbook_dots_are_exact_float32_highest():
+    """Every dot in the field multiply is float32 at Precision.HIGHEST: a
+    default-precision float32 dot runs in TF32 on the GPU (10 mantissa
+    bits; the column sums need 21) and silently breaks bit-exactness."""
+    import jax
+    import jax.numpy as jnp
+
+    a = jnp.zeros((4, fr.NDIGITS), jnp.uint32)
+    jaxpr = jax.make_jaxpr(fr.mul.__wrapped__)(a, a)
+
+    def dots(jp):
+        for eqn in jp.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                yield from dots(sub)
+
+    found = list(dots(jaxpr.jaxpr))
+    assert found, "expected the spreading dots in fr.mul"
+    for eqn in found:
+        assert all(v.aval.dtype == jnp.float32 for v in eqn.invars)
+        prec = eqn.params["precision"]
+        assert prec is not None and all(
+            p == jax.lax.Precision.HIGHEST for p in prec
+        ), prec
+
+
 # ---------------------------------------------------------------------------
 # Algebraic property tests, mirroring the reference's property-test style
 # (test_field_arithmetic.cpp:300-369).  Like the reference, the mul
